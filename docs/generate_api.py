@@ -2,7 +2,7 @@
 """Generate the markdown API reference from the package docstrings.
 
 The reference ships a Doxygen manual (refman.pdf); this is the
-equivalent docs build for the TPU framework: one markdown page per
+equivalent docs build for this framework: one markdown page per
 module under ``docs/api/``, regenerated with
 
     python docs/generate_api.py
@@ -53,8 +53,6 @@ MODULES = [
     "liblcg_tpu.parallel.api",
     "liblcg_tpu.ops.spmv",
     "liblcg_tpu.ops.dia",
-    "liblcg_tpu.ops.pallas_cg",
-    "liblcg_tpu.ops.pallas_powers",
     "liblcg_tpu.ops.spectra",
     "liblcg_tpu.utils.io",
     "liblcg_tpu.utils.errors",

@@ -1,6 +1,6 @@
-"""liblcg_tpu — a TPU-native Krylov solver framework.
+"""liblcg_tpu — a JAX Krylov solver framework.
 
-A from-scratch JAX/XLA/Pallas re-design with the full capability set of the
+A from-scratch JAX/XLA re-design with the full capability set of the
 reference C++/CUDA library liblcg (YiZhangCUG/liblcg): CG, PCG, CGS,
 BiCGSTAB, restarted BiCGSTAB, projected-gradient and spectral-projected-
 gradient solvers for real systems; BiCG, symmetric BiCG, CGS, BiCGSTAB,
@@ -11,17 +11,14 @@ reference (single-process OpenMP / single GPU) never had:
 - hardware-shaped solver variants: pipelined CG (``cgp``), Chronopoulos-
   Gear fused CG (``cgf``), s-step communication-avoiding CG (``cacg``:
   s iterations per basis build + two reduction rounds (an s-fold
-  collective reduction vs classic CG's two per iteration), with a
-  fused Pallas
-  matrix-powers+Gram kernel for stencil operators in the HBM regime),
-  Chebyshev iteration, restarted GMRES(m), MINRES/PMINRES, a
-  whole-solve VMEM-resident Pallas CG kernel;
-- first-class multi-chip scaling over a ``jax.sharding.Mesh``
+  collective reduction vs classic CG's two per iteration)),
+  Chebyshev iteration, restarted GMRES(m), MINRES/PMINRES;
+- first-class multi-device scaling over a ``jax.sharding.Mesh``
   (``parallel``): row-partitioned/DIA/stencil operators with ppermute
   halos, psum'd reductions, block-Jacobi IC, multi-process execution;
 - multi-RHS batched solves (``solve_batched``), composable with sharding,
   plus block CG (``block_cg``/``block_pcg``): all RHS share one block
-  Krylov space — fewer iterations, MXU-matmul Gram reductions;
+  Krylov space — fewer iterations, matmul Gram reductions;
 - complex systems on complex-less backends via ``realify``.
 
 Design principles (vs. the reference):

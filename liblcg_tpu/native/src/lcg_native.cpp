@@ -1,5 +1,5 @@
 // Native host runtime for liblcg_tpu: the inherently-sequential passes that
-// feed the TPU compute path.
+// feed the device compute path.
 //
 // The reference runs its incomplete factorizations on the host too (native
 // COO IC preconditioner.cpp:42-307; even the CUDA backend factorizes on host,

@@ -1,4 +1,4 @@
-"""Linear operator protocol — the TPU-native replacement for liblcg's
+"""Linear operator protocol — the JAX replacement for liblcg's
 callback design.
 
 The reference never materializes ``A`` inside a solver: the user passes a C
@@ -93,7 +93,7 @@ class LinearOperator:
 
 
 class DenseOperator(LinearOperator):
-    """Dense matrix operator; products run on the MXU.
+    """Dense matrix operator; products run as matmuls.
 
     Replaces the reference's OpenMP dense matvec ``lcg_matvec``
     (algebra.cpp:165-193) and the 4-mode complex variant
@@ -304,10 +304,9 @@ class ScatteredOperator(LinearOperator):
         self.shape = (int(n), int(n))
         self.dtype = jnp.dtype(vals.dtype)
         # Complex values stay HOST-side (numpy): on complex-less
-        # accelerator backends (this TPU) even creating a complex device
-        # array fails with UNIMPLEMENTED at first materialization — and a
-        # complex ScatteredOperator's only on-chip use is as the staging
-        # input to realify()/solve_realified, which read host values.
+        # accelerator backends even creating a complex device array fails
+        # with UNIMPLEMENTED at first materialization, and realify() /
+        # solve_realified read host values.
         put = (np.asarray if jnp.issubdtype(self.dtype, jnp.complexfloating)
                else jnp.asarray)
         self.diag = put(diag)
@@ -373,7 +372,7 @@ register_pytree_node(ScatteredOperator, _scattered_flatten,
 
 
 class BandedOperator(LinearOperator):
-    """Sparse operator in DIA (diagonal) storage — the gather-free TPU form.
+    """Sparse operator in DIA (diagonal) storage — the gather-free form.
 
     For matrices whose nonzeros live on few diagonals (stencils, banded
     systems — the shipped ``data/case_10K_A`` has 19 diagonals), the product
@@ -480,7 +479,7 @@ def make_sparse_operator(
       (full diagonal present; off-diagonals at most 5% of n): the
       diag+scatter product beats both a one-giant-gather ELL and a
       mostly-empty DIA there (the shipped case_10K_cA shape — and the
-      only form whose realified product is chip-fast, PARITY.md);
+      form whose realified product is a fused elementwise pass);
     - DIA when the nonzeros occupy at most ``max_diagonals`` distinct
       diagonals *and* DIA storage is not wildly larger than ELL;
     - padded ELL otherwise.
@@ -604,7 +603,7 @@ class NormalEqOperator(LinearOperator):
         """``diag(A^H A)`` — the per-column squared norms of the inner
         operator, so ``JacobiPreconditioner(NormalEqOperator(A))`` gives
         Jacobi-CGNR out of the box (measured: 200 vs 291 iterations on
-        the realified case_1K, profiling/probe_r3 series)."""
+        the realified case_1K)."""
         f = getattr(self.inner, "col_sq_norms", None)
         if f is None:
             raise NotImplementedError(
@@ -858,8 +857,7 @@ class RealifiedOperator(LinearOperator):
 
     Built from the *data* of a concrete complex operator (Dense / ELL /
     DIA), so every product runs in pure real arithmetic — the escape hatch
-    for accelerators without complex support (TPU backends commonly lack
-    complex dtypes entirely).  Solve with CGS (or BiCG): the block form is
+    for accelerators without complex support.  Solve with CGS (or BiCG): the block form is
     not symmetric even for complex-symmetric A, and its eigenvalues come in
     conjugate pairs, which breaks BiCGSTAB's one-dimensional residual
     smoothing (omega -> 0) — a classic result; CGS has no such stage.  Pack/unpack with :func:`split_complex` /
@@ -939,7 +937,7 @@ class RealifiedOperator(LinearOperator):
         """Fused stacked product for diag+scattered parts: ONE gather and
         ONE scatter over the stacked (2n,) vector instead of 4 each (the
         generic path's 4 sub-products) — gathers/scatters are the
-        dominant per-iteration cost of the pair engines on this chip."""
+        dominant per-iteration cost of the pair engines."""
         n = self._n
         re, im = self.re, self.im
         xr, xi = x2[:n], x2[n:]
@@ -1022,7 +1020,7 @@ def split_complex(z) -> jnp.ndarray:
     """Pack a complex vector as [real; imag] for a realified solve.
 
     Host (numpy) inputs split on host — creating a complex DEVICE array
-    first would raise UNIMPLEMENTED on complex-less backends (this TPU);
+    first would raise UNIMPLEMENTED on complex-less backends;
     only the real-valued stacked result goes to the device.
     """
     if not isinstance(z, jnp.ndarray):

@@ -2,10 +2,10 @@
 
 The reference's only nontrivial compute kernels are its COO SpMV loops
 (``src/lib/algebra.cpp:195-222`` — forward and transposed, OpenMP) and the
-cuSPARSE SpMV calls in the CUDA samples.  On TPU the natural sparse layout is
+cuSPARSE SpMV calls in the CUDA samples.  Here the general sparse layout is
 **ELL** (fixed nnz-per-row with padding): the product becomes a dense gather
-``x[cols]`` of shape (n, k) followed by a multiply-reduce, which XLA tiles
-onto the VPU with no scalar loops and no dynamic shapes.  COO scatter-adds
+``x[cols]`` of shape (n, k) followed by a multiply-reduce, which XLA fuses
+with no scalar loops and no dynamic shapes.  COO scatter-adds
 are kept only as a fallback via ``segment_sum``.
 
 Host-side format conversion (COO -> ELL / CSR) runs once in numpy at operator
@@ -76,7 +76,7 @@ def coo_to_ell(
 
 
 def ell_spmv(cols: jnp.ndarray, vals: jnp.ndarray, x: jnp.ndarray) -> jnp.ndarray:
-    """``(A @ x)`` for ELL storage: gather + multiply-reduce on the VPU."""
+    """``(A @ x)`` for ELL storage: gather + multiply-reduce."""
     gathered = jnp.take(x, cols, axis=0)  # (n, k)
     return jnp.sum(vals * gathered, axis=1)
 
@@ -94,19 +94,17 @@ def coo_spmv_transposed(
 
 
 def dense_mv(A: jnp.ndarray, x: jnp.ndarray) -> jnp.ndarray:
-    """Dense matvec on the MXU.
+    """Dense matvec.
 
     The reference's OpenMP dense matvec is ``lcg_matvec`` (algebra.cpp:165-193);
-    on TPU this is a single ``dot`` with an explicit accumulation type so
+    here it is a single ``dot`` with an explicit accumulation type so
     f32/bf16 inputs still accumulate at full precision.
 
-    ``precision=HIGHEST`` for f32 inputs: the TPU default lowers f32
-    matmul INPUTS to bf16 passes (~8 mantissa bits per product), which
-    turns the solver's operator into a perturbed one — Krylov residuals
-    then stall around the perturbation level.  HIGHEST reconstructs full
-    f32 products from bf16 passes (3-6 MXU passes; the MXU has the
-    headroom).  bf16 inputs keep the default — that precision was opted
-    into by the caller.
+    ``precision=HIGHEST`` for f32 inputs: a default-precision f32 matmul
+    may multiply in reduced precision (TF32 on GPUs), which turns the
+    solver's operator into a perturbed one — Krylov residuals then stall
+    around the perturbation level.  bf16 inputs keep the default — that
+    precision was opted into by the caller.
     """
     preferred = jnp.promote_types(A.dtype, jnp.float32)
     if jnp.issubdtype(A.dtype, jnp.complexfloating):

@@ -1,15 +1,15 @@
-"""Multi-chip / multi-host scaling layer.
+"""Multi-device / multi-host scaling layer.
 
 The reference library has **no distributed code whatsoever** (SURVEY §2.9:
 no MPI/NCCL/sockets anywhere in the tree; parallelism is OpenMP threads or a
-single GPU).  This package is the new first-class component the TPU build
+single GPU).  This package is the new first-class component this library
 adds: solves run as SPMD programs over a ``jax.sharding.Mesh``, with
 
 - the operator row-partitioned over the mesh (``ShardedSparseOperator``) or
   domain-decomposed (``ShardedLaplacian3D``),
 - the solution/residual/direction vectors carried as local shards inside one
   compiled ``lax.while_loop``,
-- per-iteration dot products reduced with ``lax.psum`` over ICI (adjacent
+- per-iteration dot products reduced with ``lax.psum`` (adjacent
   reductions coalesce into one collective),
 - operator communication as ``all_gather`` (general sparsity) or one-hop
   ``ppermute`` halo exchange (banded sparsity / stencils), overlapped with

@@ -441,8 +441,8 @@ def solve_refined_sharded(
     x0p = (jnp.zeros_like(bp) if x0 is None
            else _pad_to(jnp.asarray(x0, dtype=bp.dtype), n_padded))
 
-    run = R._build_ir(fn, m, params, inner_params, int(max_refinements),
-                      int(trace_len), False, False, lo, needs_M)
+    run = R._build_ir(fn, params, inner_params, int(max_refinements),
+                      int(trace_len), lo, needs_M)
 
     extras = []
     extra_specs = []

@@ -1,9 +1,11 @@
 """Mesh construction and multi-host initialization.
 
-The solver mesh is one-dimensional: Krylov iterations offer a single natural
-partition axis (matrix rows / grid slabs), and a 1-D mesh laid out over ICI
-keeps the per-iteration ``psum`` and halo ``ppermute`` on the fastest links.
-Multi-host pods extend the same axis over DCN via ``jax.distributed``.
+The solver mesh is one-dimensional because the algorithm is: Krylov
+iterations offer a single natural partition axis (matrix rows / grid
+slabs).  The per-iteration ``psum`` and the neighbour halo ``ppermute`` run
+over that axis; devices joined all to all (NVLink within a host) need no
+other layout.  Multi-host runs extend the same axis via
+``jax.distributed``.
 """
 
 from __future__ import annotations
@@ -50,9 +52,8 @@ def initialize_distributed(
     """Initialize multi-host JAX (one process per host, devices pooled).
 
     Thin wrapper over ``jax.distributed.initialize``; after it returns,
-    ``jax.devices()`` spans the whole slice and :func:`make_mesh` builds a
-    global mesh whose collectives ride ICI within a host's chips and DCN
-    across hosts.  The reference has no equivalent (single-process only).
+    ``jax.devices()`` spans every host and :func:`make_mesh` builds a
+    global mesh whose collectives run within and across hosts.  The reference has no equivalent (single-process only).
     No-op when already initialized or when running single-process.
     """
     try:

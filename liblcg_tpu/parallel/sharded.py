@@ -6,7 +6,7 @@ vector is carried as the matching local shard, and the per-iteration
 communication is
 
 - ``mv`` (the hot op, 1-2 per iteration):
-  * ``comm="allgather"`` — gather the full x over ICI, then one local
+  * ``comm="allgather"`` — gather the full x, then one local
     ELL gather-multiply-reduce.  Correct for any sparsity pattern.
   * ``comm="halo"`` — exchange only the boundary slices each neighbor
     needs via two ``lax.ppermute`` hops, then compute on the extended
@@ -127,7 +127,7 @@ class ShardedSparseOperator(LinearOperator):
     def _build_transpose_plan(self, ell_cols, ell_vals):
         """Column-block plan for the general-pattern transpose: bound the
         rmv/hmv accumulation buffer to O(|R| * n_local) instead of the full
-        O(N) image (VERDICT r2: the 100M-row BiCG target would otherwise
+        O(N) image (the 100M-row BiCG target would otherwise
         materialize ~800 MB per device before the reduce-scatter).
 
         Host-side, per ELL entry: the *relative* destination block

@@ -1,10 +1,10 @@
 """Matrix-free 3-D 7-point Laplacian operators (single-device and sharded).
 
 The weak-scaling workload from BASELINE.md ("synthetic 100M-row 3D 7-point
-Laplacian CSR, row-partitioned") — except that on TPU the idiomatic form of
+Laplacian CSR, row-partitioned") — except that the idiomatic XLA form of
 a stencil operator is not a sparse gather at all: it is a fused
-pad/shift/add over a dense 3-D grid, which XLA vectorizes at HBM
-speed-of-light with zero index traffic.  The sharded variant partitions the
+pad/shift/add over a dense 3-D grid, which XLA vectorizes at memory
+bandwidth with zero index traffic.  The sharded variant partitions the
 grid into z-slabs and exchanges one boundary plane per neighbor per product
 via ``lax.ppermute`` (the one-hop halo pattern of SURVEY §2.9), so the
 communication volume per product is O(nx*ny) against O(nx*ny*nz_local)
@@ -248,33 +248,6 @@ class Stencil3DOperator(LinearOperator):
         g(cxm)[:, :, 0] = 0;  g(cxp)[:, :, -1] = 0
         g(cym)[:, 0, :] = 0;  g(cyp)[:, -1, :] = 0
         g(czm)[0, :, :] = 0;  g(czp)[-1, :, :] = 0
-        # Constant-interior detection (host-side, before the device
-        # upload — zero transfer cost): shifted/anisotropic Laplacians
-        # qualify for the scalar-coefficient Pallas steppers
-        # (ops/pallas_powers.py).  A face coefficient is "constant" when
-        # its interior entries share one value (its domain face is zero
-        # by the masking above, which the kernels reproduce with zero
-        # padding / zeroed halos).
-        def _const(a, interior):
-            v = a.reshape(self.grid)[interior]
-            if v.size and np.all(v == v.flat[0]):
-                return complex(v.flat[0]) if np.iscomplexobj(v) else float(v.flat[0])
-            return None
-        sl = slice(None)
-        consts = [
-            _const(c0, (sl, sl, sl)),
-            _const(cxm, (sl, sl, slice(1, None))),
-            _const(cxp, (sl, sl, slice(None, -1))),
-            _const(cym, (sl, slice(1, None), sl)),
-            _const(cyp, (sl, slice(None, -1), sl)),
-            _const(czm, (slice(1, None), sl, sl)),
-            _const(czp, (slice(None, -1), sl, sl)),
-        ]
-        #: (c0, cxm, cxp, cym, cyp, czm, czp) scalars when every
-        #: coefficient is constant in the interior, else None.
-        self.const_coeffs = (
-            tuple(consts) if all(c is not None for c in consts) else None
-        )
         (self.c0, self.cxm, self.cxp, self.cym, self.cyp, self.czm,
          self.czp) = [jnp.asarray(c) for c in coeffs]
         self.dtype = self.c0.dtype
@@ -401,14 +374,14 @@ class Stencil3DOperator(LinearOperator):
 def _st_flatten(op):
     return (
         (op.c0, op.cxm, op.cxp, op.cym, op.cyp, op.czm, op.czp),
-        (op.grid, str(op.dtype), op.nnz, op.const_coeffs),
+        (op.grid, str(op.dtype), op.nnz),
     )
 
 
 def _st_unflatten(aux, children):
     obj = object.__new__(Stencil3DOperator)
     (obj.c0, obj.cxm, obj.cxp, obj.cym, obj.cyp, obj.czm, obj.czp) = children
-    obj.grid, dtype_str, obj.nnz, obj.const_coeffs = aux
+    obj.grid, dtype_str, obj.nnz = aux
     n = obj.grid[0] * obj.grid[1] * obj.grid[2]
     obj.shape = (n, n)
     obj.dtype = jnp.dtype(dtype_str)

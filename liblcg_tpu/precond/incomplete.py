@@ -75,19 +75,19 @@ class IncompleteFactorization(NamedTuple):
         """Application operator for the factorization (the ``MxProduct``
         callback the reference's samples build, sample7.cpp:107-108).
 
-        ``mode="blocked"`` uses the MXU-form blocked banded solve
+        ``mode="blocked"`` uses the matmul-form blocked banded solve
         (:mod:`.blocked_tri` — no gathers, ~n/block sequential steps);
         ``"levels"`` the level-scheduled gather form; ``"auto"`` picks
         blocked for banded factors (bandwidth <= 1024) and levels
         otherwise.  ``dtype`` (blocked mode) sets device storage — pass
-        float32 for the TPU speed path.
+        float32 to halve the bytes each apply streams.
         """
         if mode not in ("auto", "blocked", "levels"):
             raise ValueError(f"mode must be auto/blocked/levels, got {mode!r}")
         if mode != "levels":
             off = self.l_rows - self.l_cols
             w = int(off.max()) if len(off) else 0
-            # auto takes the blocked (MXU) form only when its dense
+            # auto takes the blocked (matmul) form only when its dense
             # block-diagonal storage is sane: device memory is O(n * m)
             # and the host factor-inversion work O((n/m) * m^3) for block
             # size m ~ bandwidth.  A wide band on a large n (e.g. a

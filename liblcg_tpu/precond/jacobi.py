@@ -81,12 +81,12 @@ class ChebyshevPreconditioner(LinearOperator):
     """Polynomial preconditioner: M^{-1} ~= p_d(A) by ``degree`` steps of
     Chebyshev iteration on [lmin, lmax].
 
-    TPU-native addition (no reference counterpart): applying M^{-1} costs
+    An addition with no reference counterpart: applying M^{-1} costs
     ``degree`` extra operator products but ZERO inner products, so PCG with
     this preconditioner performs its global reductions ~(degree+1)x less
     often per unit of operator work — exactly the trade that wins when
-    reductions are the latency bottleneck (single chip) or ride ICI/DCN
-    psums (mesh).  Bounds default to Gershgorin circles.
+    reductions are the latency bottleneck (single device) or become
+    collective psums (mesh).  Bounds default to Gershgorin circles.
     """
 
     def __init__(self, A, degree: int = 4, lmin=None, lmax=None):

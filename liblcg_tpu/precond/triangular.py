@@ -1,6 +1,6 @@
 """Level-scheduled sparse triangular solves on device.
 
-Sparse triangular substitution is the hard TPU kernel in this library: the
+Sparse triangular substitution is the hard device kernel in this library: the
 reference runs it as a sequential row scan on host/GPU
 (``preconditioner.cpp:309-366`` native COO; ``preconditioner_eigen.cpp:
 925-1047`` Eigen; cusparse csrsv2 in the CUDA samples).  A row-by-row scan

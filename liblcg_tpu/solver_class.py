@@ -1,6 +1,6 @@
 """Object-oriented solver classes — the L4 convenience API.
 
-TPU-native re-design of the reference's abstract solver classes
+A JAX re-design of the reference's abstract solver classes
 (``src/lib/solver.h:32-283`` ``LCG_Solver``/``CLCG_Solver`` and the Eigen/
 CUDA mirrors, ``solver_eigen.h:32-306``, ``solver_cuda.h:35-541``): the user
 subclasses, overrides ``AxProduct`` (and optionally ``MxProduct`` /

@@ -12,14 +12,11 @@ the block "deflates" the ``s-1`` smallest eigenvalues.
 This is also the one algorithm family in the package whose per-iteration
 arithmetic is *matmul-shaped*: the Gram matrices ``P A Pᵀ`` and ``Z Rᵀ``
 are (s, n) x (n, s) contractions and the vector updates are (s, s) x (s, n)
-products — MXU work, where batched CG's axpy/dot recurrences are pure VPU
-streams.  **Measured reality on a v5e** (PERFORMANCE.md, probe_r3_block):
-the iteration reduction (14-38% at s=8-32 on the benchmarked spectra)
-does NOT cover the extra streaming/latency of the Gram and update passes
-— independent batched CG wins in every regime measured.  Prefer
-``solve_batched(method="cg")`` unless the block deflates an actual
-eigenvalue cluster (≳2x fewer iterations) or the operator product
-dominates ≫5 vector streams per iteration.
+products — matrix-unit work, where batched CG's axpy/dot recurrences are
+pure vector streams.  Whether the iteration reduction (14-38% at s=8-32 on
+the tested spectra) covers the extra Gram and update passes has not been
+measured on the GPU; prefer ``solve_batched(method="cg")`` unless the block
+deflates an actual eigenvalue cluster (≳2x fewer iterations).
 
 Recurrence (preconditioned; rows of the (s, n) matrices are systems):
 
@@ -67,20 +64,25 @@ from ..types import SolverParams, Status
 from . import harness as H
 
 
-#: Every matmul in this engine runs at HIGHEST precision: on TPU the
-#: default f32 matmul lowers to bf16 multiply passes, which poisons the
-#: Gram matrices (the step equations' coefficients) and stalls the
-#: Newton-Schulz inverse below its tolerance — measured as outright f32
-#: convergence failure on chip while CPU (true f32 matmuls) converged.
+#: Every matmul in this engine runs at HIGHEST precision: a default f32
+#: matmul may multiply in reduced precision (TF32 on GPUs, bf16 passes on
+#: other accelerators), which poisons the Gram matrices (the step
+#: equations' coefficients) and stalls the Newton-Schulz inverse below its
+#: tolerance — seen as outright f32 convergence failure where true f32
+#: matmuls converge.
 _PREC = lax.Precision.HIGHEST
 
 
 def _mm(a: jnp.ndarray, b: jnp.ndarray, pet=None) -> jnp.ndarray:
-    return jnp.matmul(a, b, precision=_PREC, preferred_element_type=pet)
+    if pet is not None:
+        # Widen the operands rather than only the result: GPU GEMMs take
+        # no mixed f32 x f32 -> f64 contraction.
+        a, b = a.astype(pet), b.astype(pet)
+    return jnp.matmul(a, b, precision=_PREC)
 
 
 def _gram(Ablk: jnp.ndarray, Bblk: jnp.ndarray) -> jnp.ndarray:
-    """(s, n) x (n, s) Gram product ``Ablk @ Bblkᵀ`` — an MXU contraction;
+    """(s, n) x (n, s) Gram product ``Ablk @ Bblkᵀ`` — a matrix-unit contraction;
     accumulates in the active mixed-precision dtype and psums over the
     mesh axis when tracing distributed."""
     acc = H._acc_dtype(Ablk.dtype)
@@ -125,11 +127,9 @@ def _ns_inverse(Ws: jnp.ndarray) -> jnp.ndarray:
     """Batched Newton-Schulz inverse of a stack of guarded SPD matrices:
     ``X <- X (2I - W X)``, quadratically convergent.
 
-    This is the TPU-shaped replacement for Cholesky + two triangular
-    solves: those lower to long scalar-sequential chains (measured 5.8
-    ms/iteration for s=32 on a v5e — 25x the whole batched-CG iteration),
-    while Newton-Schulz is a chain of (s, s) MXU matmuls with no
-    data-dependent shapes.  Matrices must be pre-guarded by
+    This replaces Cholesky + two triangular solves, which lower to long
+    scalar-sequential chains inside the loop, with a chain of (s, s)
+    matmuls with no data-dependent shapes.  Matrices must be pre-guarded by
     :func:`_mask_guard` (SPD, bounded condition number).
 
     Three properties keep the chain short and SAFE: Jacobi scaling
@@ -260,7 +260,7 @@ def block_cg(A, B, X0=None, *, M=None, params=SolverParams(), monitor=None,
         a = alive.astype(B.dtype)
         Rm = c["R"] * a
         Pm = c["P"] * a
-        G = c["G"] * (a @ a.T)                        # Γk, masked rows/cols 0
+        G = c["G"] * _mm(a, a.T)                      # Γk, masked rows/cols 0
         Q = A.mv(Pm)
         W = _gram(Pm, Q)
         # Both s x s systems of this iteration invert matrices known at

@@ -3,10 +3,10 @@
 Beyond the reference's method set (its nonsymmetric story is the
 BiCG/CGS/BiCGSTAB family); included because GMRES is the standard
 nonsymmetric Krylov workhorse a production solver library is expected to
-provide.  TPU-first shape: the Arnoldi orthogonalization is classical
+provide.  Accelerator shape: the Arnoldi orthogonalization is classical
 Gram-Schmidt applied twice (CGS2 — the standard stability fix that turns
-the inner products into two (m+1, n) x (n,) matmuls on the MXU instead of
-j sequential dots), the basis lives in a fixed (m+1, n) carry, and each
+the inner products into two (m+1, n) x (n,) matmuls instead of j
+sequential dots), the basis lives in a fixed (m+1, n) carry, and each
 restart cycle is one step of the shared harness loop.
 
 The least-squares problem is solved by the standard Givens-rotation QR of
@@ -68,9 +68,9 @@ def gmres(A, b, x0=None, *, restart: int = 32, M=None,
 
     def comb(V, h):
         """sum_k h[k] V[k] — shape bshape + (n_local,).  HIGHEST precision:
-        this contraction lowers to an MXU matmul, and the TPU default's
-        bf16 input passes would perturb the assembled correction/basis at
-        ~1e-3 (see ops/spmv.dense_mv)."""
+        this contraction lowers to a matmul, and a reduced-precision
+        default (TF32 on GPUs) would perturb the assembled
+        correction/basis at ~1e-3 (see ops/spmv.dense_mv)."""
         return jnp.einsum("k...,k...n->...n", h, V,
                           precision=lax.Precision.HIGHEST)
 

@@ -43,7 +43,7 @@ Carry = Dict[str, Any]
 # makes sq_norm/dot_u/dot_c/has_nan emit a ``lax.psum`` over the named mesh
 # axis, and ``dim(v)`` report the *global* vector length.  This is the
 # fused-reduction design of SURVEY §2.9: each iteration's adjacent dot
-# products become psums over ICI that XLA coalesces.
+# products become psums that XLA coalesces.
 # ---------------------------------------------------------------------------
 
 _DIST_AXIS: list = []
@@ -81,9 +81,9 @@ def _allreduce(s: jnp.ndarray) -> jnp.ndarray:
 # ``with batched()`` traces a solver over a stack of right-hand sides at
 # once: vectors are (nrhs, n), reductions keep a (nrhs, 1) leading axis, and
 # ``run_loop`` masks finished systems so they stop updating (naively letting
-# a converged CG keep stepping divides 0/0 and poisons x with NaNs).  On TPU
-# this is nearly free: the iteration's serialized region count is unchanged,
-# each region just carries nrhs times the work.  The reference has no
+# a converged CG keep stepping divides 0/0 and poisons x with NaNs).  The
+# iteration's launch and reduction count is unchanged; each kernel just
+# carries nrhs times the work.  The reference has no
 # multi-RHS story at all — solves are strictly one b at a time (lcg.h:61).
 # ---------------------------------------------------------------------------
 
@@ -285,8 +285,8 @@ def run_loop(
     Performance shape: the loop body is *straight-line* — every exit test
     lives in the scalar-only ``cond_fn`` and the final status is
     reconstructed once after the loop.  ``lax.cond`` branches inside the
-    body would serialize extra XLA computations per iteration, which on TPU
-    costs far more than the arithmetic they guard.  The reference's
+    body would serialize extra XLA computations per iteration, which costs
+    far more than the arithmetic they guard.  The reference's
     per-iteration NaN scan (lcg.cpp:247-253) is replaced by NaN
     *propagation*: a NaN in the recurrence poisons the residual scalar,
     every comparison with it is False, the loop exits, and the post-loop

@@ -6,7 +6,7 @@ requires positive-definiteness; MINRES (Paige & Saunders 1975) minimizes
 the residual over the same Krylov space for ANY symmetric A using a
 three-term Lanczos recurrence plus Givens rotations — all scalar work,
 one operator product and one fused reduction pair (alpha with the next
-beta) per iteration, so its TPU shape matches CG's.
+beta) per iteration, so its cost shape matches CG's.
 
 The residual norm is tracked by the rotation recurrence (exact in exact
 arithmetic), so the reference stopping rules apply unchanged.

@@ -147,8 +147,8 @@ def _cg_pipelined(A, b, x0, M, params, monitor, trace_len):
     ||r||^2 / ||x||^2 needed for the stopping metric — at a single fused
     reduction point.  Per iteration that is ONE operator product and ONE
     reduction region instead of CG's two dependent reduction points, which
-    matters twice on TPU: on-chip, serialized-region latency bounds small
-    solves; across a mesh, it halves the psum count per iteration.
+    matters twice: on one device, launch latency bounds small solves;
+    across a mesh, it halves the psum count per iteration.
 
     No reference counterpart (this variant exists because of hardware
     latency, not algebra); convergence matches CG in exact arithmetic, with
@@ -296,7 +296,7 @@ def chebyshev(A, b, x0=None, *, lmin, lmax, params=SolverParams(),
               monitor=None, trace_len=0):
     """Chebyshev iteration (Saad, Iterative Methods alg. 12.1).
 
-    TPU-native addition with no reference counterpart: the recurrence uses
+    An addition with no reference counterpart: the recurrence uses
     NO inner products — the only reduction per iteration is the stopping
     metric itself, so the serialized-region count per iteration is the
     minimum possible for a monitored solve.  Requires an enclosing spectral

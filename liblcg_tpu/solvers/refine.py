@@ -2,16 +2,13 @@
 
 The reference's only mixed-precision story is a line-for-line float copy of
 the complex library (``src/lib/clcg_cudaf.h/.cu`` — same algorithms, float
-storage, no way back to double accuracy).  On TPU v5e the trade is far
-more lopsided: f64 is software-emulated at ~12x the cost of f32
-(PERFORMANCE.md), so "just run in double" forfeits an order of magnitude.
-The TPU-native answer is classical iterative refinement (Wilkinson; the
-same loop behind modern GPU mixed-precision solvers):
+storage, no way back to double accuracy).  Where f64 costs more than f32
+(half the bytes per vector for a bandwidth-bound solve, and fewer f64
+FLOP/s on most accelerators), the answer is classical iterative
+refinement (Wilkinson; the same loop behind GPU mixed-precision solvers):
 
     repeat:  r = b - A x          (working precision, e.g. f64)
-             solve  A_lo d = r    (fast precision, e.g. f32 — any engine,
-                                   including the whole-solve VMEM Pallas
-                                   kernels)
+             solve  A_lo d = r    (fast precision, e.g. f32 — any engine)
              x = x + d
 
 Each refinement contracts the error by roughly the inner solve's relative
@@ -77,27 +74,6 @@ def _default_inner_params(outer: SolverParams, lo: jnp.dtype) -> SolverParams:
     )
 
 
-def _pallas_eligible(A_low, m: str, M_low, inner_params: SolverParams,
-                     pallas: str) -> bool:
-    """Trace-time routing decision for the inner correction solves: the
-    shared kernel predicate (:func:`..ops.pallas_cg.kernel_ineligibility`
-    — ONE copy of the rules for all dispatch sites) plus the
-    pallas=never/always and cpu-backend policies that belong here."""
-    if pallas == "never":
-        return False
-    from ..ops.pallas_cg import kernel_ineligibility
-
-    reason = kernel_ineligibility(
-        A_low, getattr(A_low, "dtype", jnp.float32), m, M_low,
-        inner_params.reduce_dtype)
-    if reason is not None:
-        if pallas == "always":
-            raise ValueError(f"pallas='always' but {reason}")
-        return False
-    if jax.default_backend() == "cpu" and pallas != "always":
-        return False  # interpreter is far slower than the XLA loop
-    return True
-
 
 def solve_refined(
     A,
@@ -113,7 +89,6 @@ def solve_refined(
     A_low: Optional[LinearOperator] = None,
     M_low=None,
     trace_len: int = 0,
-    pallas: str = "auto",
     lmin=None,
     lmax=None,
     s: int = 4,
@@ -142,9 +117,6 @@ def solve_refined(
     A_low, M_low : optional explicit low-precision operator/preconditioner
         (required for matrix-free operators without ``astype``).
     trace_len : if > 0, record the outer residual metric per refinement.
-    pallas : "auto" routes eligible f32 DIA inner solves to the whole-solve
-        VMEM kernel *inside* the compiled refinement loop; "never"/"always"
-        as in :func:`liblcg_tpu.solve`.
 
     Returns
     -------
@@ -183,13 +155,12 @@ def solve_refined(
         # accuracy at cacg's s-fold collective economy).  Resolved
         # through solve._resolve_engine so the partial is CACHED (a
         # fresh partial per call would defeat _JIT_CACHE — measured: a
-        # full retrace per solve), the caller's pallas= policy threads
-        # into the inner kernel routing, and lmin/lmax/s pass through
-        # for operators Gershgorin cannot bound.
+        # full retrace per solve), and lmin/lmax/s pass through for
+        # operators Gershgorin cannot bound.
         from ..solve import _resolve_engine
 
         fn, needs_M, _ = _resolve_engine("cacg", False, A=A, lmin=lmin,
-                                         lmax=lmax, s=s, pallas=pallas)
+                                         lmax=lmax, s=s)
     else:
         fn, needs_M = _INNER_ENGINES[m]
     if M is not None and not needs_M:
@@ -223,16 +194,13 @@ def solve_refined(
             iterations=jnp.asarray(0, jnp.int32),
             residual=jnp.asarray(jnp.nan), trace=None)
 
-    use_pallas = _pallas_eligible(A_low, m, M_low, inner_params, pallas)
-    interpret = use_pallas and jax.default_backend() == "cpu"
-
     key = (fn, params, inner_params, int(max_refinements), int(trace_len),
-           use_pallas, interpret, str(lo), needs_M)
+           str(lo), needs_M)
     jitted = _JIT_CACHE.get(key)
     if jitted is None:
         jitted = jax.jit(_build_ir(
-            fn, m, params, inner_params, int(max_refinements),
-            int(trace_len), use_pallas, interpret, lo, needs_M))
+            fn, params, inner_params, int(max_refinements),
+            int(trace_len), lo, needs_M))
         _JIT_CACHE[key] = jitted
 
     x0_arr = jnp.zeros_like(b) if x0 is None else jnp.asarray(x0, b.dtype)
@@ -250,8 +218,8 @@ def solve_refined(
     return result
 
 
-def _build_ir(fn, m, params, inner_params, max_refinements, trace_len,
-              use_pallas, interpret, lo, needs_M):
+def _build_ir(fn, params, inner_params, max_refinements, trace_len, lo,
+              needs_M):
     """Compile-time builder: the whole refinement loop as one XLA program."""
 
     def run(A, A_low, b, x0, *extras):
@@ -263,33 +231,6 @@ def _build_ir(fn, m, params, inner_params, max_refinements, trace_len,
             return H.real_residual(r_sq, x_sq, n, params.abs_diff)
 
         def inner_solve(r_lo):
-            if use_pallas:
-                from ..ops.pallas_cg import (
-                    pallas_cg_dia, pallas_cgs_dia, pallas_pcg_dia)
-
-                common = dict(
-                    n=A_low.shape[0], eps=inner_params.epsilon,
-                    max_iter=inner_params.effective_max_iterations(),
-                    abs_diff=bool(inner_params.abs_diff),
-                    interpret=interpret,
-                )
-                z = jnp.zeros_like(r_lo)
-                if m == "pcg":
-                    d, t, _ = pallas_pcg_dia(
-                        A_low.offsets, A_low.diag_vals,
-                        jnp.asarray(M_low.inv_diag), r_lo, z, **common)
-                elif m == "cgs":
-                    d, t, _ = pallas_cgs_dia(
-                        A_low.offsets, A_low.diag_vals, r_lo, z, **common)
-                elif m == "bicgstab":
-                    from ..ops.pallas_cg import pallas_bicgstab_dia
-
-                    d, t, _ = pallas_bicgstab_dia(
-                        A_low.offsets, A_low.diag_vals, r_lo, z, **common)
-                else:
-                    d, t, _ = pallas_cg_dia(
-                        A_low.offsets, A_low.diag_vals, r_lo, z, **common)
-                return d, t
             kwargs = dict(params=inner_params)
             if needs_M:
                 kwargs["M"] = M_low
@@ -364,25 +305,6 @@ def _build_ir(fn, m, params, inner_params, max_refinements, trace_len,
     return run
 
 
-def _pallas_eligible_batched(A_low, m, M_low, inner_params, pallas,
-                             nrhs: int) -> bool:
-    """Batched mirror of :func:`_pallas_eligible` (same shared
-    predicate, batched census)."""
-    if pallas == "never":
-        return False
-    from ..ops.pallas_cg import kernel_ineligibility
-
-    reason = kernel_ineligibility(
-        A_low, getattr(A_low, "dtype", jnp.float32), m, M_low,
-        inner_params.reduce_dtype, batched=True, nrhs=nrhs)
-    if reason is not None:
-        if pallas == "always":
-            raise ValueError(f"pallas='always' but {reason}")
-        return False
-    if jax.default_backend() == "cpu" and pallas != "always":
-        return False
-    return True
-
 
 def solve_refined_batched(
     A,
@@ -397,7 +319,6 @@ def solve_refined_batched(
     max_refinements: int = 8,
     A_low: Optional[LinearOperator] = None,
     M_low=None,
-    pallas: str = "auto",
     check: bool = False,
 ) -> SolveResult:
     """Multi-RHS mixed-precision iterative refinement.
@@ -406,8 +327,7 @@ def solve_refined_batched(
     shape (nrhs, n): the outer working-precision correction loop runs
     all systems in lockstep (per-system freezing — converged systems
     stop updating and stop counting), while the fast-dtype inner
-    correction solves run through the batched engine or, when eligible,
-    the batched multi-RHS VMEM Pallas kernels.  Per-system statuses,
+    correction solves run through the batched engine.  Per-system statuses,
     residuals and total inner-iteration counts come back as arrays, the
     same contract as :func:`liblcg_tpu.solve_batched`.
     """
@@ -456,17 +376,13 @@ def solve_refined_batched(
         inner_params = _default_inner_params(params, lo)
 
     nrhs = int(B.shape[0])
-    use_pallas = _pallas_eligible_batched(A_low, m, M_low, inner_params,
-                                          pallas, nrhs)
-    interpret = use_pallas and jax.default_backend() == "cpu"
-
     key = ("batched", fn, params, inner_params, int(max_refinements),
-           use_pallas, interpret, str(lo), needs_M, nrhs)
+           str(lo), needs_M, nrhs)
     jitted = _JIT_CACHE.get(key)
     if jitted is None:
         jitted = jax.jit(_build_ir_batched(
-            fn, m, params, inner_params, int(max_refinements),
-            use_pallas, interpret, lo, needs_M, nrhs))
+            fn, params, inner_params, int(max_refinements), lo, needs_M,
+            nrhs))
         _JIT_CACHE[key] = jitted
 
     X0_arr = jnp.zeros_like(B) if X0 is None else jnp.asarray(X0, B.dtype)
@@ -478,17 +394,15 @@ def solve_refined_batched(
         trace=None,
     )
     if check:
-        import numpy as _np
-
         from ..utils.errors import check_status
 
-        for s in _np.asarray(result.status_code):
+        for s in np.asarray(result.status_code):
             check_status(s, raise_error=True, quiet=True)
     return result
 
 
-def _build_ir_batched(fn, m, params, inner_params, max_refinements,
-                      use_pallas, interpret, lo, needs_M, nrhs):
+def _build_ir_batched(fn, params, inner_params, max_refinements, lo,
+                      needs_M, nrhs):
     """Batched compile-time builder: lockstep refinement with per-system
     freezing, one XLA program."""
 
@@ -512,36 +426,6 @@ def _build_ir_batched(fn, m, params, inner_params, max_refinements,
                 return H.real_residual(r_sq, x_sq, n, params.abs_diff)
 
             def inner_solve(R_lo):
-                if use_pallas:
-                    from ..ops.pallas_cg import (
-                        pallas_cg_dia_batched,
-                        pallas_cgs_dia_batched,
-                        pallas_pcg_dia_batched,
-                    )
-
-                    common = dict(
-                        n=A_low.shape[0], nrhs=nrhs,
-                        eps=inner_params.epsilon,
-                        max_iter=inner_params.effective_max_iterations(),
-                        abs_diff=bool(inner_params.abs_diff),
-                        interpret=interpret,
-                    )
-                    Z = jnp.zeros_like(R_lo)
-                    with jax.enable_x64(False):
-                        if m == "pcg":
-                            D, t, _ = pallas_pcg_dia_batched(
-                                A_low.offsets, A_low.diag_vals,
-                                jnp.asarray(M_low.inv_diag, jnp.float32),
-                                R_lo, Z, **common)
-                        elif m == "cgs":
-                            D, t, _ = pallas_cgs_dia_batched(
-                                A_low.offsets, A_low.diag_vals, R_lo, Z,
-                                **common)
-                        else:
-                            D, t, _ = pallas_cg_dia_batched(
-                                A_low.offsets, A_low.diag_vals, R_lo, Z,
-                                **common)
-                    return D, t
                 kwargs = dict(params=inner_params)
                 if needs_M:
                     kwargs["M"] = Ml_v

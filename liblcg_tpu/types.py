@@ -1,6 +1,6 @@
 """Core types: solver parameters, status codes, and solve results.
 
-TPU-native re-design of the reference liblcg configuration layer
+A JAX re-design of the reference liblcg configuration layer
 (``src/lib/util.h:32-306``).  The reference exposes two C structs
 (``lcg_para`` at util.h:95-148 and ``clcg_para`` at util.h:247-273) plus two
 return-code enums; here a single frozen dataclass serves both domains (the

@@ -1,14 +1,14 @@
-"""The reference's flagship complex workload, the TPU-native way.
+"""The reference's flagship complex workload, three ways.
 
 Reference counterpart: sample6.cpp (Eigen complex sparse, Jacobi-PCG /
 PBiCG on data/case_10K_cA at eps=1e-6 abs_diff) and sample10.cu (the
-same system on GPU).  This backend has NO complex dtypes, yet every
-path below runs — three ways, fastest first:
+same system on GPU).  Every path below runs without complex device
+dtypes — three ways, fastest first:
 
 1. ``ScatteredDirectSolver`` — the system is a diagonal plus 200
    scattered symmetric couplings (k=198 coupled indices), so one exact
-   Woodbury solve through the k×k coupling block answers it in ~0.2 ms
-   at machine precision (the reference iterates 450 times for ~67 ms).
+   Woodbury solve through the k×k coupling block answers it at
+   machine precision (the reference iterates 450 times).
 2. ``solve_realified`` — the reference's OWN algorithms (Jacobi-PCG,
    BiCG-sym, ...) in real [re; im]-pair arithmetic: iteration-count
    parity with the reference binary, entirely on the accelerator.
@@ -26,8 +26,8 @@ import jax
 
 # The reference is double precision; without x64 the pair arithmetic
 # truncates to f32 and this ill-conditioned system needs ~6x the
-# iterations (solve_realified warns).  f64 is emulated on the TPU but
-# correct — and irrelevant for the direct path, which runs on host.
+# iterations (solve_realified warns).  Irrelevant for the direct path,
+# which runs on host.
 jax.config.update("jax_enable_x64", True)
 
 import liblcg_tpu as lcg

@@ -2,9 +2,9 @@
 
 Sweeps mesh sizes on the 3-D 7-point Laplacian with the grid growing
 proportionally (constant work per device) and reports nnz/s and parallel
-efficiency.  On a real pod slice the mesh axis spans chips (ICI) and hosts
-(DCN, via ``initialize_distributed``); on a development machine run with
-virtual CPU devices:
+efficiency.  On real hardware the mesh axis spans the GPUs of a host and,
+via ``initialize_distributed``, several hosts; on a development machine
+run with virtual CPU devices:
 
     python samples/sample6_weak_scaling.py --virtual   # 8 CPU devices
 

@@ -2,7 +2,7 @@
 
 Each process owns a slice of the global device mesh; the solver mesh spans
 all of them and the per-iteration psums ride the inter-process transport
-(DCN on a real pod).  Run with no arguments to launch a 2-process demo on
+(the network between hosts on a real cluster).  Run with no arguments to launch a 2-process demo on
 CPU (4 virtual devices per process, 8-device global mesh):
 
     python samples/sample7_multihost.py

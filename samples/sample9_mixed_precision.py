@@ -2,8 +2,8 @@
 
 The reference's mixed-precision story is a float copy of the complex
 library (``src/lib/clcg_cudaf.h/.cu`` — float storage, no way back to
-double accuracy).  On TPU v5e, f64 is software-emulated at ~12× the cost
-of f32 (PERFORMANCE.md), so the TPU-native answer is classical iterative
+double accuracy).  Where f64 costs more than f32 (twice the bytes per
+vector in a bandwidth-bound solve), the answer is classical iterative
 refinement (``solve_refined``): f32 inner solves + f64 residual
 correction, the whole nest compiled as one XLA program.
 
@@ -18,8 +18,6 @@ Laplacian:
    inner dtype automatically);
 4. the refinement trace: one outer-residual entry per refinement.
 
-Chip-measured (bench ``lap_ir_*``): 128³ Laplacian to ε=1e-24 in
-24.4 ms device via IR vs 114.1 ms pure-f64 CG — 4.7×.
 """
 
 import _bootstrap  # noqa: F401  (checkout-run import path)

@@ -1,5 +1,5 @@
 """Batched multi-RHS solve tests: per-system convergence/status parity with
-the one-at-a-time path (a TPU-native capability with no reference
+the one-at-a-time path (a capability with no reference
 counterpart — solves there are strictly one b at a time, lcg.h:61)."""
 
 import numpy as np

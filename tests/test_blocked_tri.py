@@ -1,5 +1,5 @@
 """Blocked banded triangular solve (precond/blocked_tri.py) — the
-MXU-form IC/ILU application (VERDICT r2 #2).  Parity target: the
+matmul-form IC/ILU application.  Parity target: the
 level-scheduled form and the reference's sequential substitution
 (preconditioner.cpp:309-366)."""
 

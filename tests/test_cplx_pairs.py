@@ -3,7 +3,7 @@ Woodbury solver (solvers/direct.py) — the round-4 complex-10K machinery.
 
 The pair engines run the reference's complex recurrences in pure real
 arithmetic (stacked [re; im] vectors over a RealifiedOperator), which is
-what executes on the complex-less TPU backend.  Counts must track the
+what executes on a backend without complex dtypes.  Counts must track the
 complex-dtype engines (same recurrence; reduction order differs).
 """
 
@@ -247,8 +247,8 @@ def test_pairs_warns_without_x64(complex_sym_small):
 
 def test_complex_backend_guard_message():
     """When the backend probe says complex is unsupported, solve() must
-    fail fast with routing guidance (on the real TPU this is live; here
-    the cached probe result is forced)."""
+    fail fast with routing guidance (the cached probe result is forced
+    here; CPU and GPU backends have complex dtypes)."""
     import jax
 
     import importlib

@@ -3,9 +3,8 @@ ca_cg coeff="df64" path.
 
 What is being protected: the s-step coefficient recurrences need ~48+
 mantissa bits (Gram quadratic forms cancel below f32 on near-collinear
-bases), and on TPU the f64-emulated path pays ~49 us per tiny reduction
-(profiling/probe_r3_sstep.json).  df64 must deliver wide-path iteration
-counts from pure f32 elementwise ops.  Reference semantics being matched:
+bases); with x64 off there is no native wide dtype.  df64 must deliver
+wide-path iteration counts from pure f32 elementwise ops.  Reference semantics being matched:
 classic CG, src/lib/lcg.cpp:143-274.
 """
 

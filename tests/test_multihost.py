@@ -1,6 +1,6 @@
 """Multi-process SPMD solve over jax.distributed (2 processes x 4 CPU
 devices -> one 8-device global mesh, collectives over the inter-process
-transport).  Exercises the path a real multi-host pod uses (DCN)."""
+transport).  Exercises the path a real multi-host run uses."""
 
 import os
 import subprocess

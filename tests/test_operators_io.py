@@ -167,7 +167,7 @@ def test_docs_build_runs():
     assert os.path.exists(idx)
     text = open(idx).read()
     for mod in ("liblcg_tpu.solve", "liblcg_tpu.parallel.api",
-                "liblcg_tpu.ops.pallas_cg"):
+                "liblcg_tpu.solvers.sstep"):
         assert mod in text
 
 

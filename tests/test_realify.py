@@ -1,6 +1,5 @@
 """Realified complex solves: the 2n x 2n real block form lets every complex
-system run on backends without complex dtypes (TPU backends commonly lack
-them entirely)."""
+system run on backends without complex dtypes."""
 
 import numpy as np
 import jax.numpy as jnp
@@ -48,7 +47,7 @@ def test_realified_solve_matches_complex_solve():
 
 
 def test_realified_golden_case1k_cgnr(case_1k_complex):
-    """The robust complex-on-TPU recipe for hard systems: realify + CGNR
+    """The robust realified recipe for hard systems: realify + CGNR
     (CG on the SPD normal equations R^T R x = R^T b) — solves the shipped
     complex case to 1e-8 where realified CGS stagnates."""
     sys_, answer = case_1k_complex

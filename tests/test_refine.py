@@ -1,9 +1,8 @@
 """Mixed-precision iterative refinement (solvers/refine.py).
 
-The TPU-native replacement for the reference's float-copy mixed-precision
-story (src/lib/clcg_cudaf.h/.cu): f32 inner solves + f64 residual
-correction reach full f64 accuracy at f32 throughput (f64 is ~12x f32 on
-v5e, PERFORMANCE.md).
+The replacement for the reference's float-copy mixed-precision story
+(src/lib/clcg_cudaf.h/.cu): f32 inner solves + f64 residual correction
+reach full f64 accuracy at f32 throughput.
 """
 
 import numpy as np
@@ -65,27 +64,6 @@ def test_ir_case10k_pcg_inner(case_10k):
                           params=lcg.SolverParams(epsilon=EPS_F64))
     assert int(r.status_code) == int(lcg.Status.CONVERGENCE)
     assert float(np.mean(np.abs(np.asarray(r.x) - ans))) < 1e-5
-
-
-def test_ir_pallas_interpreter_matches_xla():
-    """pallas='always' uses the interpreted VMEM kernel on CPU — same
-    refinement behavior as the XLA inner engine."""
-    import os
-    if not os.path.exists("/root/reference/data/case_10K_A"):
-        pytest.skip("reference data not present")
-    from liblcg_tpu.utils import io
-
-    s = io.read_system("/root/reference/data/case_10K_A")
-    A = lcg.make_sparse_operator(s.n, s.n, s.rows, s.cols, s.vals)
-    b = jnp.asarray(s.b)
-    p = lcg.SolverParams(epsilon=EPS_F64)
-    r_x = lcg.solve_refined(A, b, params=p, pallas="never")
-    r_p = lcg.solve_refined(A, b, params=p, pallas="always",
-                            max_refinements=4)
-    assert int(r_p.status_code) == int(lcg.Status.CONVERGENCE)
-    assert float(r_p.residual) <= EPS_F64
-    np.testing.assert_allclose(np.asarray(r_p.x), np.asarray(r_x.x),
-                               rtol=0, atol=1e-7)
 
 
 def test_ir_already_optimized():
@@ -219,9 +197,7 @@ def test_ir_bf16_inner_reaches_f64_accuracy():
     cond(A)*u_bf16 < 1 (here cond~40): more refinements (contraction
     ~6e-2/step vs f32's ~1e-6), dots accumulated in f32 (auto
     reduce_dtype for sub-f32 dtypes).  For stiff systems bf16 IR stalls
-    (chip-measured on 128^3: cond*u ~ 26, stalls at 7e-5) and bf16
-    buys no stencil bandwidth on this chip anyway (1.01x, probe_r3_bf16)
-    — f32 inner is the production default."""
+    (on 128^3: cond*u ~ 26, stalls at 7e-5) — f32 inner is the default."""
     A = _lap(10)
     b = jnp.ones((A.shape[0],), jnp.float64)
     r = lcg.solve_refined(A, b, inner_dtype=jnp.bfloat16,
@@ -326,23 +302,6 @@ def test_ir_batched_per_system_freezing(case_10k):
     assert st[0] == int(lcg.Status.CONVERGENCE)
     assert st[1] == int(lcg.Status.ALREADY_OPTIMIZED)
     assert int(np.asarray(r.iterations)[1]) == 0
-
-
-def test_ir_batched_pallas_kernel_inner(case_10k):
-    """pallas='always': the batched multi-RHS VMEM kernel runs INSIDE the
-    jitted refinement loop (interpreter on CPU) — same answers as the
-    batched XLA engine path."""
-    sys_, _ = case_10k
-    A = lcg.make_sparse_operator(sys_.n, sys_.n, sys_.rows, sys_.cols,
-                                 sys_.vals)
-    B = jnp.stack([jnp.asarray(sys_.b) * (1 + 0.1 * k) for k in range(2)])
-    p = lcg.SolverParams(epsilon=EPS_F64)
-    rk = lcg.solve_refined_batched(A, B, params=p, pallas="always",
-                                   max_refinements=4)
-    rx = lcg.solve_refined_batched(A, B, params=p, pallas="never")
-    assert np.all(np.asarray(rk.status_code) == int(lcg.Status.CONVERGENCE))
-    np.testing.assert_allclose(np.asarray(rk.x), np.asarray(rx.x),
-                               rtol=0, atol=1e-7)
 
 
 def test_ir_batched_guards():

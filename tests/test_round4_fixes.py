@@ -35,7 +35,7 @@ def test_batched_trace_matches_single(spd, method):
     assert res.trace is not None and res.trace.shape == (B.shape[0], k)
     for i in range(B.shape[0]):
         single = lcg.solve(op, B[i], method=method, params=PARAMS,
-                           trace_len=k, pallas="never")
+                           trace_len=k)
         ti = int(min(int(single.iterations), k))
         np.testing.assert_allclose(
             np.asarray(res.trace[i][:ti]), np.asarray(single.trace[:ti]),
@@ -106,7 +106,7 @@ def test_sharded_batched_trace(spd):
                         trace_len=k)
     assert res.trace is not None and res.trace.shape == (B.shape[0], k)
     single = lcg.solve(lcg.DenseOperator(A), B[0], method="cg",
-                       params=PARAMS, trace_len=k, pallas="never")
+                       params=PARAMS, trace_len=k)
     ti = min(int(single.iterations), k)
     np.testing.assert_allclose(np.asarray(res.trace[0][:ti]),
                                np.asarray(single.trace[:ti]), rtol=1e-5)
@@ -130,7 +130,7 @@ def test_batched_cacg_matches_single():
     assert res.trace is not None and res.trace.shape == (3, 8)
     for i in range(3):
         single = lcg.solve(A, jnp.asarray(B[i]), method="cacg", s=3,
-                           lmin=0.0, lmax=12.0, params=p, pallas="never")
+                           lmin=0.0, lmax=12.0, params=p)
         assert int(res.iterations[i]) == int(single.iterations)
         assert lcg.Status(int(res.status_code[i])) == lcg.Status.CONVERGENCE
         np.testing.assert_allclose(np.asarray(res.x[i]), X_true[i],
@@ -178,7 +178,7 @@ def test_make_sparse_operator_auto_scattered():
     np.add.at(dense, (rows, cols), vals)
     b = dense @ x_true
     r = lcg.solve(A, jnp.asarray(b), method="cg",
-                  params=lcg.SolverParams(epsilon=1e-14), pallas="never")
+                  params=lcg.SolverParams(epsilon=1e-14))
     np.testing.assert_allclose(np.asarray(r.x), x_true, atol=1e-5)
     r2 = lcg.solve(A, jnp.asarray(b), method="chebyshev",
                    params=lcg.SolverParams(epsilon=1e-14,
@@ -248,7 +248,7 @@ def test_solve_sequence_matches_manual_chain(spd):
     b = np.asarray(b0)
     for k in range(K):
         r = lcg.solve(op, jnp.asarray(b), x0=jnp.asarray(x_prev),
-                      method="cg", params=PARAMS, pallas="never")
+                      method="cg", params=PARAMS)
         # Inside lax.scan XLA fuses the dense matvec differently, so the
         # two trajectories converge (to the shared tolerance) along
         # slightly different paths — agreement is at the eps-implied
